@@ -143,48 +143,42 @@ def classify_reads(
 
 
 def _slice_blrg(codes, s: AnnotatedKmerSet, n_devices: int = 1) -> np.ndarray:
-    """One set-slice classification; device sort-join engine for narrow
-    keys (optionally set-sharded over a mesh), host searchsorted
-    fallback."""
+    """One set-slice classification: the device sort-join engine
+    (optionally set-sharded over a mesh for narrow keys).  Device errors
+    propagate; only an empty set takes the host path."""
     k = s.kset.k
     if 2 * k + 2 <= 62 and s.kset.count:
-        try:
-            import jax.numpy as jnp
+        import jax.numpy as jnp
 
-            from .device import classify_codes_device, encode_set
+        from .device import classify_codes_device, encode_set
 
-            key = (id(s), n_devices)
-            cached = _DEVICE_SETS.get(key)
-            if n_devices > 1:
-                if cached is None:
-                    from ..parallel.classify_sharded import ShardedClassifier
-                    from ..parallel.mesh import data_mesh
-
-                    cached = ShardedClassifier(
-                        data_mesh(n_devices),
-                        encode_set(s.kset.lo, s.lhs, s.rhs), k)
-                    _DEVICE_SETS[key] = cached
-                return cached.classify_codes(codes)
+        key = (id(s), n_devices)
+        cached = _DEVICE_SETS.get(key)
+        if n_devices > 1:
             if cached is None:
-                cached = jnp.asarray(encode_set(s.kset.lo, s.lhs, s.rhs))
+                from ..parallel.classify_sharded import ShardedClassifier
+                from ..parallel.mesh import data_mesh
+
+                cached = ShardedClassifier(
+                    data_mesh(n_devices),
+                    encode_set(s.kset.lo, s.lhs, s.rhs), k)
                 _DEVICE_SETS[key] = cached
-            return classify_codes_device(codes, cached, k)
-        except Exception:
-            pass
-    elif 2 * k + 2 <= 126 and s.kset.count:
+            return cached.classify_codes(codes)
+        if cached is None:
+            cached = jnp.asarray(encode_set(s.kset.lo, s.lhs, s.rhs))
+            _DEVICE_SETS[key] = cached
+        return classify_codes_device(codes, cached, k)
+    if 2 * k + 2 <= 126 and s.kset.count:
         # wide keys (31 < k <= 62): 4-limb device sort-join
-        try:
-            from .device import classify_codes_device_wide, encode_set_wide
+        from .device import classify_codes_device_wide, encode_set_wide
 
-            key = (id(s), "wide")
-            cached = _DEVICE_SETS.get(key)
-            if cached is None:
-                cached = encode_set_wide(s.kset.lo, s.kset.hi, s.lhs,
-                                         s.rhs, k)
-                _DEVICE_SETS[key] = cached
-            return classify_codes_device_wide(codes, cached, k)
-        except Exception:
-            pass
+        key = (id(s), "wide")
+        cached = _DEVICE_SETS.get(key)
+        if cached is None:
+            cached = encode_set_wide(s.kset.lo, s.kset.hi, s.lhs,
+                                     s.rhs, k)
+            _DEVICE_SETS[key] = cached
+        return classify_codes_device_wide(codes, cached, k)
     return _batch_blrg(codes, s)
 
 

@@ -7,7 +7,7 @@ from .framework import App
 
 
 def build_app() -> App:
-    app = App("goss", "goss — TPU-native de novo assembler (gossamer-tpu)")
+    app = App("goss", "goss — de novo assembler (gossamer-tpu)")
     for cmd in all_goss_commands():
         app.register(cmd)
     return app

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 from .goss import build_app
 
@@ -88,7 +89,10 @@ def main(argv=None) -> int:
         print(line, file=sys.stderr)
         if o.dry_run or i < o.start_stage:
             continue
+        t0 = time.perf_counter()
         rc = app.main(st + verbose)
+        print(f"[stage {i}] {st[0]}: {time.perf_counter() - t0:.3f} s wall",
+              file=sys.stderr)
         if rc != 0:
             print(f"gossple: stage {i} failed; resume with --start-stage {i}",
                   file=sys.stderr)

@@ -81,9 +81,9 @@ def _classify_opts(p):
     p.add_argument("--output-filename-prefix", default="")
     p.add_argument("--dont-write-reads", action="store_true")
     p.add_argument("--num-devices", type=int, default=0,
-                   help="shard the index across N chips of the local "
-                        "mesh (0 = auto: all visible accelerator "
-                        "devices)")
+                   help="shard the index across N devices of the local "
+                        "mesh (0 = auto: every visible GPU, else one "
+                        "device)")
     p.add_argument("--preserve-read-order", action="store_true",
                    help="accepted for reference compatibility: this "
                         "engine classifies in streaming batches, so "
@@ -97,10 +97,9 @@ def _classify_run(ctx: Context) -> None:
     ann = AnnotatedKmerSet.read(o.prefix, ctx.fac)
     n_devices = int(getattr(o, "num_devices", 0) or 0)
     if n_devices == 0:
-        import jax
+        from ..parallel.mesh import auto_num_devices
 
-        n_devices = (len(jax.devices())
-                     if jax.default_backend() == "tpu" else 1)
+        n_devices = auto_num_devices()
     n_devices = max(1, n_devices)
     passes = 1
     if o.max_memory:

@@ -30,16 +30,15 @@ def _chunk_opts(p):
                         "outgrowing them spill to host RAM (the reference's "
                         "RAM->disk spill, docs/goss.md:327-338)")
     p.add_argument("--chunk-size", type=int, default=1 << 22,
-                   help="device batch size in k-mer windows (default "
-                        "matches the bench shapes so CLI runs reuse the "
-                        "same compiled programs; remote compiles cost "
-                        "10-60s per distinct shape)")
+                   help="device batch size in k-mer windows (each "
+                        "distinct size compiles its own programs)")
     p.add_argument("--spectrum-cap", type=int, default=0,
                    help="override the device-resident distinct-key cap")
     p.add_argument("--num-devices", type=int, default=0,
-                   help="count across N chips of the local mesh "
-                        "(hash-partitioned k-mer space over ICI; 0 = auto: "
-                        "all visible devices when that is a power of two)")
+                   help="count across N devices of the local mesh "
+                        "(hash-partitioned k-mer space; 0 = auto: every "
+                        "visible GPU when their number is a power of two, "
+                        "else one device)")
     p.add_argument("--coordinator", default=None,
                    help="multi-host counting: jax.distributed coordinator "
                         "address host:port (run one process per host; the "
@@ -54,16 +53,11 @@ def _resolve_num_devices(ctx: Context, rho: int) -> int:
     count_chunks); 0 = auto, which picks the full local mesh only when
     the sharded engine supports the configuration."""
     from ..ops.count import narrow_keys
+    from ..parallel.mesh import auto_num_devices
 
     n = int(getattr(ctx.opts, "num_devices", 0) or 0)
     if n == 0:
-        import jax
-
-        # auto engages only for real accelerator meshes; virtual CPU
-        # meshes (tests) must opt in explicitly
-        if jax.default_backend() != "tpu":
-            return 1
-        n = len(jax.devices())
+        n = auto_num_devices()
         chunk = int(ctx.opts.chunk_size)
         if (n & (n - 1)) or not narrow_keys(rho) or rho > 33 or chunk % 16:
             n = 1

@@ -2,7 +2,7 @@
 
 Pipeline parity with ``goss build-graph`` (``src/GossCmdBuildGraph.cc:270-491``)
 and ``goss build-kmer-set`` (``src/GossCmdBuildKmerSet.tcc:213-330``), on the
-TPU counting engine (:mod:`gossamer_tpu.ops.count`).
+device counting engine (:mod:`gossamer_tpu.ops.count`).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The de Bruijn graph: sorted edge array + counts.
 
-TPU-native replacement for the reference's succinct ``Graph``
+Device-friendly replacement for the reference's succinct ``Graph``
 (``src/Graph.hh:62-651``: SparseArray of (k+1)-mers + VariableByteArray of
 counts).  Edges are held as sorted ``uint64`` (lo, hi) planes; ``rank`` is
 a vectorized binary search and ``select`` a gather, so node degrees are

@@ -2,7 +2,7 @@
 
 Replaces the reference's Elias-Fano ``KmerSet`` (``src/KmerSet.hh:20-257``)
 with a sorted pair of uint64 planes; ``rank`` is a vectorized
-``searchsorted`` and ``select`` a gather — the TPU-friendly equivalents of
+``searchsorted`` and ``select`` a gather — the vectorized equivalents of
 the succinct SparseArray operations.
 
 Files: ``<p>.header`` (version/K/count), ``<p>.kmers-lo``, ``<p>.kmers-hi``.

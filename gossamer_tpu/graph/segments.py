@@ -3,8 +3,7 @@
 The reference walks linear paths edge-by-edge with rank/select per step
 (``src/Graph.tcc:21-46`` ``linearPath``, used by ``printLinearSegments``
 at ``src/GossCmdPrintContigs.cc:49-196`` and ``EntryEdgeSet::build`` at
-``src/EntryEdgeSet.cc:154-290``).  Sequential pointer chasing is the one
-shape TPUs cannot run, so we restructure it: the successor table is a
+``src/EntryEdgeSet.cc:154-290``).  Sequential pointer chasing does not vectorize, so we restructure it: the successor table is a
 functional graph over edge ranks, and pointer doubling labels every edge
 with its chain start and position in O(n log n) fully-vectorized work.
 """

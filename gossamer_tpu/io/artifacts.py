@@ -3,7 +3,7 @@
 Keeps the reference's persistence contract — every structure is a named
 on-disk object of several files behind a basename, with a version-checked
 header (``src/Graph.hh:65-83``, ``src/KmerSet.hh:26-58``; version-mismatch
-diagnostics at ``src/App.cc:342-348``) — but with TPU-friendly payloads:
+diagnostics at ``src/App.cc:342-348``) — but with array-friendly payloads:
 JSON headers and ``.npy`` arrays instead of succinct bit files.
 """
 

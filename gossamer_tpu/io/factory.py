@@ -1,6 +1,6 @@
 """Virtual filesystem layer.
 
-TPU-native analog of the reference's ``FileFactory`` hierarchy
+Analog of the reference's ``FileFactory`` hierarchy
 (``src/FileFactory.hh:80-160``): every command does its IO through a
 factory so tests can run hermetically against an in-memory implementation
 (reference: ``src/StringFileFactory.hh`` — the pattern behind all of the

@@ -1,14 +1,20 @@
 """ctypes binding for the native IO library (native/gossio.cpp).
 
-Builds the shared library on demand with g++ (cached next to the
-source); all consumers fall back to the pure-Python parser pipeline when
-the native library is unavailable.
+Builds the shared library on demand with ``make`` next to the source.
+The library is rebuilt whenever its stamp differs from the hash of the
+source, the Makefile and this host's CPU flags (the build uses
+``-march=native``), so a library built on another machine is never
+loaded.  Consumers fall back to the pure-Python parser pipeline only
+when no library can be built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
 from typing import Iterator
 
@@ -23,19 +29,69 @@ def _native_dir() -> str:
         os.path.abspath(__file__)))), "native")
 
 
+def _cpu_flags() -> str:
+    """This host's CPU feature flags (what ``-march=native`` compiles
+    for)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.machine() + " " + platform.processor()
+
+
+def _build_stamp(d: str) -> str:
+    """Hash of everything the library is built from on this host."""
+    h = hashlib.sha256()
+    for name in ("gossio.cpp", "Makefile"):
+        with open(os.path.join(d, name), "rb") as f:
+            h.update(f.read())
+    h.update(_cpu_flags().encode())
+    return h.hexdigest()
+
+
+def _make(d: str, out: str) -> None:
+    subprocess.run(["make", "-C", d, "-B", f"LIB={out}"], check=True,
+                   capture_output=True, timeout=300)
+
+
+def ensure_built(d: str, build=_make) -> str:
+    """Path of ``libgossio.so`` in ``d``, rebuilt first unless its stamp
+    matches :func:`_build_stamp`.  A file lock serializes concurrent
+    builders (test workers); the library is built under a temporary
+    name and renamed into place, so no process loads a partial file."""
+    so = os.path.join(d, "libgossio.so")
+    stamp_path = os.path.join(d, "libgossio.stamp")
+    with open(os.path.join(d, "libgossio.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        want = _build_stamp(d)
+        have = None
+        if os.path.exists(so) and os.path.exists(stamp_path):
+            with open(stamp_path) as f:
+                have = f.read().strip()
+        if have != want:
+            tmp = os.path.join(d, f".libgossio.{os.getpid()}.so")
+            try:
+                build(d, tmp)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            with open(stamp_path + ".tmp", "w") as f:
+                f.write(want + "\n")
+            os.replace(stamp_path + ".tmp", stamp_path)
+    return so
+
+
 def load_library():
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    d = _native_dir()
-    so = os.path.join(d, "libgossio.so")
-    src = os.path.join(d, "gossio.cpp")
     try:
-        if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(src)):
-            subprocess.run(["make", "-C", d], check=True,
-                           capture_output=True, timeout=120)
+        so = ensure_built(_native_dir())
         lib = ctypes.CDLL(so)
         lib.gossio_open.restype = ctypes.c_void_p
         lib.gossio_open.argtypes = [

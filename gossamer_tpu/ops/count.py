@@ -1,10 +1,10 @@
 """K-mer counting drivers: route chunk streams into the batched engines.
 
-TPU-native replacement for the reference counting pipeline
+Device replacement for the reference counting pipeline
 (``src/GossCmdBuildGraph.cc:270-491``: BackyardHash insert -> BlendedSort
 -> spill runs -> AsyncMerge).  Narrow keys (2*rho <= 62) run on the
-u32-plane engine v2 (:mod:`gossamer_tpu.ops.engine`, Pallas merge-fold
-on real TPUs), wide keys (k <= 62) on the four-limb variant
+u32-plane engine v2 (:mod:`gossamer_tpu.ops.engine`), wide keys
+(k <= 62) on the four-limb variant
 (:mod:`gossamer_tpu.ops.engine_wide`), multi-chip meshes on the
 hash-partitioned sharded engine (:mod:`gossamer_tpu.parallel.
 count_sharded`).  Spectra outgrowing the device cap spill to host RAM
@@ -123,7 +123,7 @@ def count_chunks(
     ``n_devices > 1`` routes through the multi-chip engine
     (:class:`gossamer_tpu.parallel.count_sharded.ShardedSpectrumEngine`):
     data-parallel kmerize + hash-partitioned all_to_all key exchange —
-    the TPU-native replacement for the reference's spill-and-merge scale
+    the device replacement for the reference's spill-and-merge scale
     story (``src/GossCmdBuildKmerSet.tcc:246-328``).
     """
     on_spill = None
@@ -210,16 +210,8 @@ def count_chunks(
                         "(lane count is not recoverable from the tuple)")
                 lanes = chunk if packed else len(codes) - rho + 1
                 cap = cap_entries or min(1 << 25, max(1 << 16, 4 * lanes))
-                # early pull: snapshot the key planes a few flushes in
-                # and stream them device->host while later batches
-                # compute (ops/engine.py snapshot_async).  Harmless when
-                # the stream turns out short or spills (auto-fallback).
-                import jax
-
-                early = 2 if jax.default_backend() == "tpu" else None
                 eng = SpectrumEngine(rho, mode, chunk or len(codes), cap=cap,
-                                     on_spill=on_spill,
-                                     early_pull_flush=early)
+                                     on_spill=on_spill)
             with profile.context("count/add_chunk"):
                 if packed:
                     eng.add_chunk_packed(np.asarray(codes[0]),
@@ -277,14 +269,15 @@ def count_rho_mers_files(
     log=None,
     n_devices: int = 1,
 ):
-    """Count straight from files through the native reader when available,
-    falling back to the Python parser chain.  ``threads`` feeds the native
-    reader's producer pool (``-T``; one parser thread per input file up
-    to the limit — the BackgroundLineSource analog,
-    ``src/LineSource.cc``)."""
-    try:
-        from ..io.native import native_flat_chunks, native_packed_chunks
+    """Count straight from files through the native reader, or through
+    the Python parser chain (with a warning) when the native library
+    cannot be built.  ``threads`` feeds the native reader's producer
+    pool (``-T``; one parser thread per input file up to the limit — the
+    BackgroundLineSource analog, ``src/LineSource.cc``)."""
+    from ..io.native import (load_library, native_flat_chunks,
+                             native_packed_chunks)
 
+    if load_library() is not None:
         if narrow_keys(rho) and chunk % 16 == 0:
             # packed transfer: 0.375 B/base host->device
             chunks = native_packed_chunks(paths, rho, chunk=chunk, fmt=fmt,
@@ -297,12 +290,14 @@ def count_rho_mers_files(
                             progress=progress, chunk=chunk,
                             cap_entries=cap_entries, log=log,
                             n_devices=n_devices)
-    except RuntimeError:
-        from ..io.readers import read_files
+    from ..io.readers import read_files
 
-        return count_rho_mers(
-            read_files(paths), rho, both_strands=both_strands,
-            canonical=canonical, chunk=chunk, spill_entries=spill_entries,
-            progress=progress, cap_entries=cap_entries, log=log,
-            n_devices=n_devices,
-        )
+    if log is not None:
+        log("warning", "native reader unavailable (see native/Makefile); "
+                       "parsing in Python")
+    return count_rho_mers(
+        read_files(paths), rho, both_strands=both_strands,
+        canonical=canonical, chunk=chunk, spill_entries=spill_entries,
+        progress=progress, cap_entries=cap_entries, log=log,
+        n_devices=n_devices,
+    )

@@ -2,7 +2,7 @@
 
 Mirrors :mod:`gossamer_tpu.core.kmer` (host NumPy) with identical
 semantics; see citations there.  K-mers travel as parallel ``uint64``
-``(lo, hi)`` lanes.  On TPU, XLA lowers u64 ops onto u32 pairs; the
+``(lo, hi)`` lanes.  The
 hot kernels (sort, hash) additionally expose explicit u32-limb forms so
 the compiler never materializes emulated 64-bit multiplies where a
 16-bit-digit formulation is cheaper.
@@ -52,7 +52,7 @@ def fnv_hash(lo, hi):
 
     The mod-2**64 multiply by the FNV prime (0x100000001B3) is decomposed
     as ``(seed << 40) + seed * 0x1B3`` over four 16-bit digits held in
-    uint32 lanes, so TPU never needs a 64x64 multiply.
+    uint32 lanes, so the device never needs a 64x64 multiply.
     """
     # state digits d0..d3, 16 bits each in uint32 lanes
     shape = jnp.shape(lo)

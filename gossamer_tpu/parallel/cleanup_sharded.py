@@ -155,12 +155,12 @@ def make_degree_fn(mesh: Mesh, rho: int, replicated: bool = False):
                     jax.lax.all_gather(in_d, "d"))
         return out_d[None], in_d[None]
 
-    return shard_map(
+    return jax.jit(shard_map(
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d"), P("d")),
         out_specs=(P(), P()) if replicated else (P("d"), P("d")),
         check_vma=False,
-    )
+    ))
 
 
 def sharded_degrees(mesh: Mesh, lo: np.ndarray, rho: int,
@@ -195,8 +195,8 @@ def make_trim_fn(mesh: Mesh, cutoff: int):
         kept = jax.lax.psum(jnp.sum(keep.astype(jnp.int32)), "d")
         return keep[None], kept[None]
 
-    return shard_map(local, mesh=mesh, in_specs=(P("d"),),
-                     out_specs=(P("d"), P()))
+    return jax.jit(shard_map(local, mesh=mesh, in_specs=(P("d"),),
+                             out_specs=(P("d"), P())))
 
 
 def sharded_trim_mask(mesh: Mesh, counts: np.ndarray, cutoff: int):

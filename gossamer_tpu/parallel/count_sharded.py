@@ -1,9 +1,10 @@
 """Multi-chip k-mer counting on engine v2: data-parallel reads,
-hash-sharded k-mer space, all-to-all exchange over ICI.
+hash-sharded k-mer space, all-to-all exchange between devices.
 
-TPU-native replacement for the reference's single-node spill-and-merge
+Device replacement for the reference's single-node spill-and-merge
 scale story (``src/GossCmdBuildKmerSet.tcc:246-328``, SURVEY.md §2.10):
-instead of disk spill files, chips exchange k-mers over ICI.
+instead of disk spill files, devices exchange k-mers (NVLink on a
+multi-GPU host).
 
 Design (scaling-book recipe: pick a mesh, annotate shardings, let XLA
 insert collectives):

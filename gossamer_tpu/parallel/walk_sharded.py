@@ -244,12 +244,12 @@ def make_tip_pass(mesh: Mesh, rho: int, rounds: int,
         out = (is_head, cand, c_cov, total, jump, resolved, rcr)
         return tuple(jax.lax.all_gather(x, "d") for x in out)
 
-    return shard_map(
+    return jax.jit(shard_map(
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d"), P("d")),
         out_specs=tuple([P()] * 7),
         check_vma=False,
-    )
+    ))
 
 
 def sharded_prune_tips_masks(mesh: Mesh, lo: np.ndarray,
@@ -326,12 +326,12 @@ def make_segment_fn(mesh: Mesh, rho: int, rounds: int):
         out = (jump, dist, jmpE, distE, resolved)
         return tuple(jax.lax.all_gather(x, "d") for x in out)
 
-    return shard_map(
+    return jax.jit(shard_map(
         local, mesh=mesh,
         in_specs=(P("d"), P("d"), P("d")),
         out_specs=tuple([P()] * 5),
         check_vma=False,
-    )
+    ))
 
 
 def sharded_segment_table(mesh: Mesh, lo: np.ndarray, rho: int,

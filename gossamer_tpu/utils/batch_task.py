@@ -1,6 +1,6 @@
 """Host-pass concurrency kit.
 
-TPU-native analog of the reference's shared-memory batch machinery:
+Analog of the reference's shared-memory batch machinery:
 
 * :class:`BatchTask` — ``MultithreadedBatchTask``
   (``src/MultithreadedBatchTask.hh:51``): T worker threads over blocks

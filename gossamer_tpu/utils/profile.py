@@ -1,7 +1,7 @@
 """Hierarchical wall-clock profiler (reference ``src/Profile.hh:55-199``).
 
 The reference's ``Profile::Context`` scopes are compile-time gated; here
-profiling is enabled with ``GOSSAMER_TPU_PROFILE=1`` (or
+profiling is enabled with ``GOSSAMER_PROFILE=1`` (or
 ``profile.enable()``) and reported per call path.
 """
 
@@ -11,7 +11,7 @@ import os
 import time
 from collections import defaultdict
 
-_ENABLED = os.environ.get("GOSSAMER_TPU_PROFILE", "") not in ("", "0")
+_ENABLED = os.environ.get("GOSSAMER_PROFILE", "") not in ("", "0")
 _STACK: list[str] = []
 _TOTALS: dict[str, float] = defaultdict(float)
 _COUNTS: dict[str, int] = defaultdict(int)

@@ -449,8 +449,7 @@ long gossio_eac_decode128(const uint8_t* buf, long nbytes, long n,
 // Canonical-class spectrum -> symmetric fwd+rc edge spectrum
 // (ops/count.py:_expand_symmetric / ops/engine.py:expand_step).
 // Pulling the canonical half-spectrum and expanding on the host halves
-// the device->host transfer, the end-to-end bottleneck on tunneled
-// runtimes.  Input keys ascend; palindromes emit once with doubled
+// the device->host transfer.  Input keys ascend; palindromes emit once with doubled
 // count.  A canonical key can never equal the rc of a different
 // canonical key (both would have to be each other's rc, i.e. equal),
 // so the merge never sums.  out_lo/out_c must hold 2n lanes; returns
@@ -669,7 +668,7 @@ void gossio_kmerize_u64(const uint8_t* codes, long n_codes, int rho,
 // Sequential chain decomposition over the successor table: for each
 // edge, its chain head and position, chains laid out contiguously in
 // ascending-head order.  The vectorized pointer-doubling formulation
-// (graph/segments.py) is the TPU shape; on the host a direct O(n) walk
+// (graph/segments.py) is the device shape; on the host a direct O(n) walk
 // is ~10x less work.  Returns the number of non-cyclic edges (cycle
 // edges get start = -1).
 long gossio_chains(const int64_t* nxt, long n,

@@ -110,7 +110,6 @@ def main():
     if not os.path.exists(os.path.join(DIR, "reads.fastq")):
         synth()
     env = dict(os.environ)
-    env.setdefault("JAX_PLATFORMS", "cpu")
     env["PYTHONPATH"] = os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))
     done_marker = os.path.join(DIR, ".done")

@@ -29,7 +29,7 @@ def command_sections(prog: str, commands):
 
 
 def main():
-    os.environ.setdefault("GOSSAMER_TPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     from gossamer_tpu.cmds import all_goss_commands
 
     parts = ["# Command reference\n",

@@ -90,3 +90,18 @@ def spectrum_kmer_set(reads, k):
         for v in read_kmers(r, k):
             s.add(py_normalize(v, k))
     return s
+
+
+def spectrum_counts(reads, rho, mode):
+    """Counted rho-mer spectrum of the forward windows, each window
+    replaced by its class representative: ``plain`` (as read), ``value``
+    (min of the window and its reverse complement) or ``ref`` (the
+    reference's FNV normalization).  {key: count}."""
+    from collections import Counter
+
+    rep = {
+        "plain": lambda v: v,
+        "value": lambda v: min(v, py_revcomp(v, rho)),
+        "ref": lambda v: py_normalize(v, rho),
+    }[mode]
+    return dict(Counter(rep(v) for r in reads for v in read_kmers(r, rho)))

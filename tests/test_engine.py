@@ -155,43 +155,6 @@ def test_overflow_detection():
         eng.finish()
 
 
-@pytest.mark.parametrize("mode", ["plain", "value", "ref"])
-def test_fold_path_parity(mode):
-    """The Pallas merge-fold batch step (interpret mode on CPU) must
-    produce the identical spectrum to the XLA sort path."""
-    rho = 26
-    rng = np.random.default_rng(11)
-    chunks = _chunks(rng, 6, 400, rho)
-    eng = SpectrumEngine(rho, mode, 400, batch=2, cap=1 << 14, fold=True)
-    assert eng.fold and eng.fold_interpret
-    for c in chunks:
-        eng.add_chunk(c)
-    lo, hi, c = eng.finish()
-    eng2 = SpectrumEngine(rho, mode, 400, batch=2, cap=1 << 14, fold=False)
-    for ch in chunks:
-        eng2.add_chunk(ch)
-    lo2, hi2, c2 = eng2.finish()
-    assert np.array_equal(lo, lo2)
-    assert np.array_equal(c, c2)
-
-
-def test_fold_path_expanded_parity():
-    rho = 26
-    rng = np.random.default_rng(12)
-    chunks = _chunks(rng, 4, 400, rho)
-    eng = SpectrumEngine(rho, "value", 400, batch=2, cap=1 << 14, fold=True)
-    for c in chunks:
-        eng.add_chunk(c)
-    lo, hi, c = eng.finish_expanded()
-    eng2 = SpectrumEngine(rho, "value", 400, batch=2, cap=1 << 14,
-                          fold=False)
-    for ch in chunks:
-        eng2.add_chunk(ch)
-    lo2, hi2, c2 = eng2.finish_expanded()
-    assert np.array_equal(lo, lo2)
-    assert np.array_equal(c, c2)
-
-
 def test_empty_stream():
     eng = SpectrumEngine(26, "plain", 100, cap=256)
     lo, hi, c = eng.finish()
@@ -236,19 +199,18 @@ def test_kmerize_packed_matches_planes(rho):
 
 
 @pytest.mark.parametrize("mode", ["plain", "value", "ref"])
-@pytest.mark.parametrize("fold", [False, True])
-def test_packed_engine_parity(mode, fold):
-    """add_chunk_packed == add_chunk spectra, XLA and fold paths."""
+def test_packed_engine_parity(mode):
+    """add_chunk_packed == add_chunk spectra."""
     from gossamer_tpu.io.stream import pack_chunk
 
     rho = 26
     rng = np.random.default_rng(14)
     chunks = _chunks(rng, 6, 512, rho)
-    eng = SpectrumEngine(rho, mode, 512, batch=2, cap=1 << 14, fold=fold)
+    eng = SpectrumEngine(rho, mode, 512, batch=2, cap=1 << 14)
     for c in chunks:
         eng.add_chunk_packed(*pack_chunk(c, rho, 512))
     lo, hi, c = eng.finish()
-    eng2 = SpectrumEngine(rho, mode, 512, batch=2, cap=1 << 14, fold=False)
+    eng2 = SpectrumEngine(rho, mode, 512, batch=2, cap=1 << 14)
     for ch in chunks:
         eng2.add_chunk(ch)
     lo2, hi2, c2 = eng2.finish()
@@ -274,34 +236,6 @@ def test_packed_engine_spill_and_expand():
     lo2, hi2, c2 = eng2.finish_expanded()
     assert np.array_equal(lo, lo2)
     assert np.array_equal(c, c2)
-
-
-def test_scan_groups_parity():
-    """scan_groups folds several flushes into one lax.scan program;
-    spectrum must match the per-flush path exactly (incl. the
-    finish-time full-batch + padded-partial drain)."""
-    import numpy as np
-    from gossamer_tpu.io.stream import pack_chunk
-    from gossamer_tpu.ops.engine import SpectrumEngine
-
-    rho, chunk = 8, 64
-    rng = np.random.default_rng(11)
-    chunks = [rng.integers(0, 4, chunk + rho - 1, dtype=np.uint8)
-              for _ in range(11)]  # 2 scan groups of 2x2 + 2 + partial
-    packed = [pack_chunk(c, rho, chunk) for c in chunks]
-
-    def run(scan_groups):
-        eng = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14,
-                             spill=False, fold=True,
-                             scan_groups=scan_groups)
-        for w, v in packed:
-            eng.add_chunk_packed(w, v)
-        return eng.finish_expanded()
-
-    lo1, hi1, c1 = run(1)
-    lo2, hi2, c2 = run(2)
-    assert np.array_equal(lo1, lo2)
-    assert np.array_equal(c1, c2)
 
 
 @pytest.mark.parametrize("hint", [False, True])
@@ -390,8 +324,7 @@ def test_early_pull_expanded_parity(monkeypatch):
     assert np.array_equal(c, c2)
 
 
-@pytest.mark.parametrize("fold", [False, True])
-def test_sparse_packed_parity(fold):
+def test_sparse_packed_parity():
     """add_chunk_packed_sparse == add_chunk spectra (incl. a padded
     final partial chunk carried by n_windows and mid-chunk separators)."""
     from gossamer_tpu.io.stream import pack_chunk_sparse
@@ -404,15 +337,13 @@ def test_sparse_packed_parity(fold):
     tail = chunks[-1].copy()
     tail[300:] = 255
     chunks[-1] = tail
-    eng = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14,
-                         fold=fold)
+    eng = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14)
     for c in chunks:
         sp = pack_chunk_sparse(c, rho, chunk, max_pos=chunk // 4)
         assert sp is not None
         eng.add_chunk_packed_sparse(*sp)
     lo, hi, cc = eng.finish()
-    eng2 = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14,
-                          fold=False)
+    eng2 = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14)
     for ch in chunks:
         eng2.add_chunk(ch)
     lo2, hi2, cc2 = eng2.finish()
@@ -430,8 +361,7 @@ def test_pack_chunk_sparse_overflow_returns_none():
     assert pack_chunk_sparse(codes, rho, chunk, max_pos=8) is None
 
 
-@pytest.mark.parametrize("fold", [False, True])
-def test_periodic_packed_parity(fold):
+def test_periodic_packed_parity():
     """add_chunk_packed_periodic (fixed-length reads, words-only wire)
     == add_chunk, incl. a mid-chunk pass boundary and trailing padding."""
     from gossamer_tpu.io.stream import pack_chunk
@@ -453,7 +383,7 @@ def test_periodic_packed_parity(fold):
     stream[: len(flat)] = flat
 
     eng = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14,
-                         fold=fold, period=T)
+                         period=T)
     starts = [0, len(passes[0])]
     data_end = len(flat)
     for i in range(n_chunks):
@@ -470,10 +400,90 @@ def test_periodic_packed_parity(fold):
         eng.add_chunk_packed_periodic(words, ph, bound, nwin)
     lo, hi, c = eng.finish()
 
-    eng2 = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14,
-                          fold=False)
+    eng2 = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14)
     for i in range(n_chunks):
         eng2.add_chunk(stream[i * chunk : (i + 1) * chunk + rho - 1])
     lo2, hi2, c2 = eng2.finish()
     assert np.array_equal(lo, lo2)
     assert np.array_equal(c, c2)
+
+
+# ------------------------------------ every ingestion format vs specmodel
+FORMATS = ["raw", "packed", "sparse", "periodic"]
+
+
+def _read_stream(rho, chunk, n_reads=40, L=50, seed=51):
+    """Fixed-length clean reads (the periodic format's contract), one
+    separator after each, cut into engine chunks.  -> (reads as str,
+    per-chunk (codes, phase, bound, nwin), period)."""
+    rng = np.random.default_rng(seed)
+    T = L + 1
+    block = np.full((n_reads, T), 255, np.uint8)
+    block[:, :L] = rng.integers(0, 4, size=(n_reads, L), dtype=np.uint8)
+    reads = ["".join("ACGT"[b] for b in row[:L]) for row in block]
+    flat = block.reshape(-1)
+    n_chunks = -(-len(flat) // chunk)
+    stream = np.full(n_chunks * chunk + rho - 1, 255, np.uint8)
+    stream[: len(flat)] = flat
+    chunks = []
+    for i in range(n_chunks):
+        p0 = i * chunk
+        nwin = max(0, min(chunk, len(flat) - rho + 1 - p0))
+        chunks.append((stream[p0 : p0 + chunk + rho - 1], p0 % T,
+                       chunk + rho, nwin))
+    return reads, chunks, T
+
+
+def _feed(eng, fmt, chunks, rho, chunk):
+    from gossamer_tpu.io.stream import pack_chunk, pack_chunk_sparse
+
+    for codes, ph, bound, nwin in chunks:
+        if fmt == "raw":
+            eng.add_chunk(codes)
+        elif fmt == "packed":
+            eng.add_chunk_packed(*pack_chunk(codes, rho, chunk))
+        elif fmt == "sparse":
+            sp = pack_chunk_sparse(codes, rho, chunk, max_pos=chunk // 4)
+            eng.add_chunk_packed_sparse(*sp)
+        else:
+            eng.add_chunk_packed_periodic(pack_chunk(codes, rho, chunk)[0],
+                                          ph, bound, nwin)
+
+
+@pytest.mark.parametrize("mode", ["plain", "value", "ref"])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_ingestion_format_matches_specmodel(fmt, mode):
+    """Each ingestion format (raw codes, packed bitmap, packed sparse,
+    packed periodic) through the XLA batch step counts exactly the
+    brute-force spectrum of ``tests/specmodel.py`` in every mode, across
+    several flushes and the padded final batch."""
+    from specmodel import spectrum_counts
+
+    rho, chunk = 26, 512
+    reads, chunks, T = _read_stream(rho, chunk)
+    eng = SpectrumEngine(rho, mode, chunk, batch=2, cap=1 << 14, period=T)
+    _feed(eng, fmt, chunks, rho, chunk)
+    lo, hi, c = eng.finish()
+    want = spectrum_counts(reads, rho, mode)
+    keys = sorted(want)
+    assert lo.tolist() == keys
+    assert not hi.any()
+    assert c.tolist() == [want[k] for k in keys]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_ingestion_format_expanded_matches_specmodel(fmt):
+    """build-graph semantics per format: the expanded fwd+rc spectrum
+    equals ``specmodel.spectrum_build_graph``."""
+    from specmodel import spectrum_build_graph
+
+    rho, chunk = 26, 512
+    reads, chunks, T = _read_stream(rho, chunk, seed=52)
+    eng = SpectrumEngine(rho, "value", chunk, batch=2, cap=1 << 14,
+                         period=T)
+    _feed(eng, fmt, chunks, rho, chunk)
+    lo, hi, c = eng.finish_expanded()
+    want = spectrum_build_graph(reads, rho)
+    keys = sorted(want)
+    assert lo.tolist() == keys
+    assert c.tolist() == [want[k] for k in keys]
